@@ -8,7 +8,7 @@ samplers); here it runs on device against the same BOSS DR12 CMASS
 likelihood the samplers use.
 
 Run from the repository root:  python examples/inference_demo.py [--smc]
-(--smc adds the tempered-SMC evidence run, ~1.5 min on a TPU chip.)
+(--smc adds the tempered-SMC evidence run.)
 """
 
 import argparse

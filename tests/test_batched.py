@@ -87,9 +87,17 @@ def test_resolve_perf_mode_policy():
     exact = resolve_perf_mode(auto, gradient_free=False)
     assert (exact.streaming_eval, exact.dispersion_final) == \
         ('exact', 'fast')
-    pinned = TheoryOptions(streaming_eval='exact', dispersion_final='fused')
+    pinned = TheoryOptions(streaming_eval='exact', dispersion_final='exact')
     out = resolve_perf_mode(pinned, gradient_free=True)
-    assert (out.streaming_eval, out.dispersion_final) == ('exact', 'fused')
+    assert (out.streaming_eval, out.dispersion_final) == ('exact', 'exact')
+
+
+def test_dispersion_final_fused_is_rejected():
+    """'fused' named a removed kernel: it must raise like any typo, never
+    fall through to another final-stage path."""
+    from victor_tpu.config import TheoryOptions
+    with pytest.raises(ValueError, match='must be one of'):
+        TheoryOptions(dispersion_final='fused')
 
 
 def test_resolve_target_gradient_free_cache_keys(bundle):

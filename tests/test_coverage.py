@@ -32,7 +32,7 @@ class TestCoverage:
         """beta is excluded from the tight calibration bands: its per-mock
         likelihood has beta-grid-scale structure (template spacing ~0.01 vs
         sigma(beta) ~0.007) so its pulls are heavy-tailed by construction —
-        see tools/coverage_test.py module docstring (60-mock TPU run:
+        see tools/coverage_test.py module docstring (60-mock run:
         fsigma8/sigma_v/epsilon pull std 1.03/1.04/0.94; beta 2.4)."""
         p, hit68, names = pulls
         assert np.all(np.isfinite(p))
@@ -51,7 +51,7 @@ class TestCoverage:
     def test_smc_posterior_coverage_smoke(self, boss_config):
         """--method smc plumbing: per-mock tempered-SMC posteriors produce
         finite posterior-mean pulls and sane central intervals. The real
-        calibration runs on TPU (100 mocks, BASELINE.md round 3: nominal
+        calibration runs on the accelerator (100 mocks, BASELINE.md: nominal
         coverage for every parameter incl. beta, whose marginal posterior
         integrates over the grid-scale wiggles that break Laplace/profile
         intervals); 2 tiny mocks here just pin the code path."""
@@ -76,8 +76,8 @@ class TestCoverage:
         """--method ns plumbing: per-mock nested-sampling posteriors produce
         finite posterior-mean pulls and sane central intervals — the same
         smoke the SMC path has, for the methodologically independent
-        estimator. The real calibration runs on TPU (50 mocks,
-        BASELINE.md round 3)."""
+        estimator. The real calibration runs on the accelerator
+        (50 mocks, BASELINE.md)."""
         from coverage_test import run_coverage_ns
         from victor_tpu.io import build_tables
         bundle = build_tables(boss_config['model'], boss_config['data'])
@@ -94,7 +94,8 @@ class TestCoverage:
     def test_sbc_rank_smoke(self, boss_config):
         """--method sbc plumbing: prior-drawn truths, per-truth data vector
         and covariance, fractional posterior ranks in [0, 1]. The real
-        rank-uniformity measurement runs on TPU (100 mocks, BASELINE.md);
+        rank-uniformity measurement runs on the accelerator (100 mocks,
+        BASELINE.md);
         2 tiny mocks here pin the code path, including the per-mock
         beta_k-dependent mock generation."""
         from coverage_test import run_sbc
@@ -113,7 +114,7 @@ class TestCoverage:
         shift_datavector/_mock_setup through run_sbc over the 5-param
         2-quantile space (shared fsigma8/beta/epsilon + per-quantile
         sigma_v__q<i>) with the correlated rho=0.4 cross-covariance. The
-        real rank-uniformity measurement runs on TPU (BASELINE.md)."""
+        real rank-uniformity measurement runs on the accelerator (BASELINE.md)."""
         from coverage_test import (SBC_BLOCK_JOINT, build_joint_boss_bundle,
                                    run_sbc)
         jb = build_joint_boss_bundle()

@@ -34,7 +34,7 @@ class TestSpline1D:
     def test_nonfinite_queries_propagate_nan(self, strategy):
         """NaN queries must come out NaN under BOTH strategies (the masksum
         select used to return a finite-but-bogus 0, hiding invalid parameter
-        points from the likelihood's NaN guard on TPU); inf with clamp=True
+        points from the likelihood's NaN guard); inf with clamp=True
         follows ext=3 boundary clamping like scipy."""
         spl = ops.Spline1D.build(self.x, clamp=True)
         coeffs = spl.coeffs(jnp.asarray(self.y))
@@ -229,34 +229,14 @@ class TestSpecial:
         np.testing.assert_allclose(got, want, rtol=1e-10)
 
 
-class TestPallasKernel:
-    def test_ppoly_pallas_matches_masksum(self):
-        """The Pallas masksum kernel is bit-identical to the XLA path
-        (interpreter mode on CPU; measured identical on TPU)."""
-        import jax.numpy as jnp
-        from victor_tpu.ops import Spline1D
-        from victor_tpu.ops.splines import ppoly_eval, ppoly_eval_pallas
-        rng = np.random.default_rng(5)
-        x = np.sort(rng.random(56))
-        y = rng.standard_normal(56)
-        s = Spline1D.build(x)
-        c = s.coeffs(jnp.asarray(y)).astype(jnp.float32)
-        q = jnp.asarray(rng.random((64, 128)).astype(np.float32) * 1.2 - 0.1)
-        a = ppoly_eval(jnp.asarray(x, dtype=jnp.float32), c, q,
-                       strategy='masksum')
-        b = ppoly_eval_pallas(jnp.asarray(x, dtype=jnp.float32), c, q,
-                              interpret=True)
-        # bit-identical on TPU hardware; interpreter mode differs by f32
-        # rounding in the op order
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=1e-5)
-
-    def test_ppoly_pallas_shape_guard(self):
-        import jax.numpy as jnp
-        from victor_tpu.ops.splines import ppoly_eval_pallas
-        with pytest.raises(ValueError):
-            ppoly_eval_pallas(jnp.zeros(5), jnp.zeros((4, 4)),
-                              jnp.zeros((3, 100)), interpret=True)
+class TestStrategyChoice:
+    @pytest.mark.parametrize('backend,want', [('cpu', 'gather'),
+                                              ('gpu', 'masksum')])
+    def test_default_strategy_per_backend(self, backend, want):
+        """ppoly_eval's strategy when none is given: the measured
+        end-to-end winner per backend (PERF.md)."""
+        from victor_tpu.ops.splines import default_strategy
+        assert default_strategy(backend) == want
 
 
 class TestUtilsTransforms:

@@ -86,7 +86,7 @@ class TestParametricBootstrap:
         """Smoke tier: the bootstrap draws mocks from the FITTED model,
         refits them, and returns bias/covariance of the right shape with
         refit scatter on the scale of the Laplace sigma (the statistical
-        100-mock calibration row runs on TPU — BASELINE.md round 5)."""
+        100-mock calibration row is in BASELINE.md)."""
         from victor_tpu.io import build_tables
         from victor_tpu.sampling.optimize import parametric_bootstrap
         bundle = build_tables(boss_config['model'], boss_config['data'])
@@ -171,7 +171,7 @@ class TestProfileScan:
         bundle = build_tables(boss_config['model'], boss_config['data'])
         # newton_steps=0 keeps the CPU test fast (the vmapped hessian trace
         # dominates compile); warm-started Adam converges to ~1e-2 on chi2,
-        # which is enough for the structural assertions below. The CLI/TPU
+        # which is enough for the structural assertions below. The CLI/device
         # path runs with the Newton polish (default newton_steps=6).
         res = profile_scan(bundle, BLOCK_4P, 'fsigma8', n_grid=9,
                            n_sigma=2.5, adam_steps=80, newton_steps=0,

@@ -421,7 +421,7 @@ class TestOptionValidation:
             with _pytest.raises(ValueError, match='must be one of'):
                 theory_options_from_config(dict(bad))
         # valid values still construct
-        assert TheoryOptions(dispersion_final='fused',
+        assert TheoryOptions(dispersion_final='exact',
                              streaming_eval='fast').streaming_eval == 'fast'
 
 

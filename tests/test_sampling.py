@@ -59,7 +59,7 @@ class TestParamSpace:
 
     def test_to_unbounded_finite_at_support_edges_f32(self):
         """Regression: the interval branch clipped u to [1e-12, 1 - 1e-12],
-        but 1 - 1e-12 rounds to 1.0 in f32 (the TPU path) so a draw at (or
+        but 1 - 1e-12 rounds to 1.0 in f32 (the device path) so a draw at (or
         rounding to) the upper prior edge mapped to logit(1) = +inf, which
         NaN-poisons the SMC/NS particle moments downstream. The clip must
         be dtype-safe (epsneg) on both sides, like the halfnorm tiny floor."""
@@ -144,7 +144,7 @@ class TestParamSpace:
             ParamSpace(block)
 
     def test_halfnorm_boundary_finite_in_f32(self):
-        """to_unbounded at x == lo must stay finite in f32 (the TPU path):
+        """to_unbounded at x == lo must stay finite in f32 (the device path):
         the old 1e-300 floor underflows to 0.0 and produced log(0) = -inf."""
         block = {'s': {'prior': {'dist': 'halfnorm', 'loc': 2.0, 'scale': 3.0}}}
         sp = ParamSpace(block)
@@ -666,7 +666,7 @@ class TestHMC:
 
 
 class TestMH:
-    """Adaptive random-walk Metropolis (sampling/mh.py) — the TPU-native
+    """Adaptive random-walk Metropolis (sampling/mh.py) — the on-device
     equivalent of the reference's cobaya MH sampler (victor/README.md:30)."""
 
     def test_mh_recovers_correlated_gaussian(self):

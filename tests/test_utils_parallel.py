@@ -22,6 +22,15 @@ class TestMesh:
         with pytest.raises(ValueError):
             make_mesh(('a', 'b'), shape=(3, 2))
 
+    def test_make_mesh_enumeration_order(self):
+        """Devices fill the mesh in enumeration order (all-to-all NVLink
+        makes every placement equal); an explicit list keeps its order."""
+        devs = jax.devices()
+        m = make_mesh(('chains', 'walkers'))
+        assert list(m.devices.flat) == devs
+        rev = make_mesh(('walkers',), devices=devs[::-1])
+        assert list(rev.devices.flat) == devs[::-1]
+
     def test_shard_and_replicate(self):
         mesh = make_mesh(('walkers',))
         x = jnp.arange(16.0).reshape(16, 1)
@@ -98,6 +107,46 @@ class TestProfiling:
             jax.jit(lambda x: x / 0.0 * 0.0)(jnp.asarray(0.0))
         debug_nans(False)
         assert bool(jnp.isnan(jax.jit(lambda x: x / 0.0 * 0.0)(jnp.asarray(0.0))))
+
+
+class TestCompileCache:
+    """enable_persistent_cache: JAX_COMPILATION_CACHE_DIR wins and the code
+    then sets nothing; otherwise the cache goes to the fixed repo path."""
+
+    SCRIPT = (
+        'import jax, jax.numpy as jnp\n'
+        'from victor_tpu.utils.profiling import enable_persistent_cache\n'
+        'enable_persistent_cache(force=True)\n'
+        'jax.jit(lambda x: jnp.sin(x) @ x.T)(jnp.ones((64, 64)))'
+        '.block_until_ready()\n'
+        'print(jax.config.jax_compilation_cache_dir)\n')
+
+    def _run(self, env_update, drop=()):
+        import os
+        import subprocess
+        import sys
+        env = {k: v for k, v in os.environ.items() if k not in drop}
+        env.update(JAX_PLATFORMS='cpu', **env_update)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        out = subprocess.run([sys.executable, '-c', self.SCRIPT], env=env,
+                             cwd=repo, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr
+        return out.stdout.strip().splitlines()[-1]
+
+    def test_environment_directory_wins(self, tmp_path):
+        got = self._run({'JAX_COMPILATION_CACHE_DIR': str(tmp_path),
+                         'JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS': '0',
+                         'JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES': '0'})
+        assert got == str(tmp_path)
+        assert any(n.startswith('jit__lambda') for n in
+                   __import__('os').listdir(tmp_path))
+
+    def test_fixed_repo_path_otherwise(self):
+        from victor_tpu.utils.profiling import DEFAULT_CACHE_DIR
+        got = self._run({}, drop=('JAX_COMPILATION_CACHE_DIR',))
+        assert got == DEFAULT_CACHE_DIR
+        assert DEFAULT_CACHE_DIR.endswith('/.cache/xla')
 
 
 @pytest.mark.slow

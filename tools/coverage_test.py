@@ -12,8 +12,8 @@ validation there is manual).
 All mocks share one compiled fit: the mock enters through the data-vector
 tables, which ride as jit arguments, so fit k >= 2 costs no compile.
 
-Measured on the BOSS config (200 mocks, gaussian form, one v5e chip,
-2026-08-17; BASELINE.md round-3 table): fsigma8 / sigma_v / epsilon pulls
+Measured on the BOSS config (200 mocks, gaussian form; BASELINE.md
+statistical results): fsigma8 / sigma_v / epsilon pulls
 are standard normal (std 1.04 / 1.00 / 0.97, |pull|<1 at 68/64/70%).
 sigma_v shows a genuine -0.22 +/- 0.07 sigma mean pull: the classic
 width-parameter MLE bias (sigma_v sets the velocity-pdf width; width MLEs

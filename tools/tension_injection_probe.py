@@ -29,7 +29,7 @@ Delta ~ sqrt(2 ln R_control) ~ 4.2 sigma. This prior-volume dependence is
 the documented property of evidence ratios (sampling/tension.py docstring)
 — hence the 6-sigma default, where both statistics must read tension.
 
-Run alone on the TPU:  python tools/tension_injection_probe.py [--nsigma 6]
+Run alone on the accelerator:  python tools/tension_injection_probe.py [--nsigma 6]
 Prints one JSON line per case; exits non-zero if the control fails to read
 concordance or the injection fails to read tension.
 """

@@ -38,7 +38,7 @@ transposes too.)
 Acceptance: per-parameter |Δmean| < 0.1 sigma, |Δsigma|/sigma < 10%, and
 |ΔlogZ| < 2 x the combined (inflated) se.
 
-Run alone on the TPU:  python tools/validate_dispersion_fast.py
+Run alone on the accelerator:  python tools/validate_dispersion_fast.py
                        python tools/validate_dispersion_fast.py --model streaming
 """
 

@@ -2,7 +2,7 @@
 """Sampler-free posterior validation by direct grid quadrature.
 
 Evaluates the BOSS likelihood on a dense 4D parameter grid with the batched
-evaluator (~1.7M evaluations in ~100 s on one v5e chip) and computes posterior
+evaluator (~1.7M evaluations) and computes posterior
 moments by numerical marginalisation. Because the likelihood matches the
 reference implementation point-for-point (see tests/test_golden.py), these
 moments ARE the reference posterior — so agreement with the MCMC chains

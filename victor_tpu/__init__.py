@@ -1,4 +1,4 @@
-"""victor_tpu: a TPU-native (JAX/XLA/Pallas) framework for void-galaxy and
+"""victor_tpu: a JAX/XLA framework for void-galaxy and
 density-split cross-correlation modelling and likelihood analysis.
 
 Re-designed from scratch with the capabilities of the reference `victor`

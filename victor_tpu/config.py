@@ -44,27 +44,25 @@ class TheoryOptions:
     # gradient-free paths and 'exact' on AD paths, see resolve_perf_mode),
     # 'exact', or 'fast' (degree-48 Chebyshev compressions of the v_r
     # spline and the mu-independent sigma_v template — the technique
-    # validated for the dispersion final stage; bounds + posterior
-    # validation in BASELINE.md: all posterior shifts <= 0.026 sigma).
-    # 'fast' is a FORWARD-path optimization (batched likelihood / SMC /
-    # quadrature: 1.36x template, 1.29x ESM — also posterior-validated
-    # composed with the excursion-set matter model, BASELINE.md round 3):
-    # under reverse-mode AD the Clenshaw recurrence's sequential transpose
-    # makes HMC 1.55x SLOWER than exact (measured, BASELINE.md round 3) —
-    # which is why 'auto' keeps 'exact' for HMC/NUTS/MAP. An unresolved
-    # 'auto' reaching the theory layer evaluates as 'exact' (the fast
+    # validated for the dispersion final stage; bounds in test_golden.py,
+    # posterior validation in BASELINE.md: all posterior shifts <= 0.026
+    # sigma). 'fast' is a FORWARD-path optimization (batched likelihood /
+    # SMC / quadrature; also posterior-validated composed with the
+    # excursion-set matter model): under reverse-mode AD the Clenshaw
+    # recurrence's sequential transpose costs more than the exact splines'
+    # — which is why 'auto' keeps 'exact' for HMC/NUTS/MAP. Neither cost is
+    # measured on a GPU yet (PERF.md). An unresolved 'auto' reaching the
+    # theory layer evaluates as 'exact' (the fast
     # branches test == 'fast'), so direct log_likelihood/theory calls —
     # eval, goldens, parity tests — are exact unless opted in.
     streaming_eval: str = 'auto'
     # final stage of the dispersion solve (the last Picard update and the
-    # jacobian's v_r/dv_r evaluations): 'auto' (default — same resolution
-    # rule as streaming_eval), 'exact' (three exact spline passes,
-    # reference semantics), 'fast' (reuses the final update's exact v_r for
-    # the jacobian — error of the order of the fixed-point convergence
+    # jacobian's v_r/dv_r evaluations): 'auto' (default — resolves to
+    # 'fast', see resolve_perf_mode), 'exact' (three exact spline passes,
+    # reference semantics), or 'fast' (reuses the final update's exact v_r
+    # for the jacobian — error of the order of the fixed-point convergence
     # error itself — and a Chebyshev-compressed dv_r; validated at the
-    # posterior level, BASELINE.md), or 'fused' (exact algorithm in one
-    # VMEM-resident Pallas kernel — kept as a measured experiment, see
-    # models/ccf_theory.py)
+    # posterior level, BASELINE.md)
     dispersion_final: str = 'auto'
     # beta-varying covariance evaluation: 'auto' (default — resolves to
     # 'factored' on gradient-free paths, 'exact' on AD/parity paths),
@@ -72,7 +70,7 @@ class TheoryOptions:
     # eval and take a dense slogdet — reference semantics float-for-float,
     # ccf_fit.py:195-260,398-413), or 'factored' (MATHEMATICALLY EXACT
     # refactoring, different fp association only: chi^2 contracts the diff
-    # against every grid precision ONCE per eval (batched MXU matmuls, no
+    # against every grid precision ONCE per eval (batched matmuls, no
     # per-eval (D, D) gathers) and scalar-interpolates the quadratic forms
     # — valid because the reference's interpolation is linear in the
     # matrix — while -0.5 log det of the blended covariance comes from a
@@ -93,7 +91,7 @@ class TheoryOptions:
         # the reference's own error messages
         for field, allowed in (
                 ('dispersion_interior', ('chebyshev', 'exact')),
-                ('dispersion_final', ('auto', 'exact', 'fast', 'fused')),
+                ('dispersion_final', ('auto', 'exact', 'fast')),
                 ('streaming_eval', ('auto', 'exact', 'fast')),
                 ('beta_covariance', ('auto', 'exact', 'factored')),
                 # the reference parses velocity_pdf.form but never reads it
@@ -149,21 +147,20 @@ def resolve_perf_mode(opts: TheoryOptions, gradient_free: bool
     """Resolve 'auto' perf modes for a concrete evaluation path.
 
     The two fields resolve differently because their AD behavior differs
-    (both measured, BASELINE.md round 3):
+    (the speed of either mode is not measured on a GPU yet, PERF.md):
 
     * `streaming_eval`: 'fast' on gradient-free paths only (batched
-      likelihood, SMC, NS, MH, ensemble — 1.36x forward); on AD paths
-      (HMC, NUTS, MAP, Fisher) it resolves 'exact', because the degree-48
-      Clenshaw recurrence's sequential reverse-mode transpose made HMC
-      0.65x SLOWER than exact.
+      likelihood, SMC, NS, MH, ensemble); on AD paths (HMC, NUTS, MAP,
+      Fisher) it resolves 'exact', because the degree-48 Clenshaw
+      recurrence's sequential reverse-mode transpose is a long serial
+      chain of small operations.
     * `dispersion_final`: 'fast' on BOTH paths — it REMOVES two of the
-      three exact final-stage passes (and therefore their transposes too),
-      measured 1.22x forward and 3.3x on the full HMC chain; its error is
-      of the order of the fixed-point convergence error itself and it is
-      posterior-validated.
+      three exact final-stage passes (and therefore their transposes too);
+      its error is of the order of the fixed-point convergence error itself
+      and it is posterior-validated.
 
     All validated shifts <= 0.05 sigma (BASELINE.md round 3). Explicit
-    'exact'/'fast'/'fused' values are always honored — config
+    'exact'/'fast' values are always honored — config
     `streaming_eval: exact` / `dispersion_final: exact` is the opt-out;
     direct theory/likelihood calls and parity tests see an unresolved
     'auto', which the theory layer evaluates as exact.

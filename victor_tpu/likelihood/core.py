@@ -1,4 +1,4 @@
-"""Likelihood evaluation: chi-squared + four likelihood forms, batched on TPU.
+"""Likelihood evaluation: chi-squared + four likelihood forms, batched on device.
 
 Functional parity with CCFFit (victor/ccf_fit.py:166-483), including:
   * PCHIP interpolation of the data vector over the reconstruction beta grid,
@@ -72,7 +72,7 @@ def _use_factored(tables, spec: TableSpec, opts: TheoryOptions) -> bool:
 
 def _factored_chi_squared(grid, icov_stack, diff, beta):
     """diff^T interp(C^-1) diff without materialising the blended matrix:
-    contract diff against EVERY grid precision (batched MXU matmuls — no
+    contract diff against EVERY grid precision (batched matmuls — no
     per-eval (D, D) dynamic-slice gathers) and scalar-interpolate the
     quadratic forms with the reference's exact interpolation semantics
     (_interp_matrix_stack on a (n_b,) stack of scalars). Mathematically
@@ -155,7 +155,8 @@ def chi_squared(tables, spec: TableSpec, opts: TheoryOptions, params):
         return chisq, None
     cov = interpolated_covariance(tables, spec, beta)
     icov = interpolated_precision(tables, spec, beta)
-    # full matmul precision: TPU's default bf16 dot would cost ~1e-2 on chi^2
+    # full matmul precision: XLA's default f32 dot precision (TF32 on the
+    # GPU) would cost ~1e-2 on chi^2
     chisq = jnp.einsum('i,ij,j->', diff, icov, diff, precision='highest')
     return chisq, cov
 

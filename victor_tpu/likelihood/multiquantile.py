@@ -65,7 +65,7 @@ class JointBundle:
     ndata: int = dataclasses.field(metadata=dict(static=True))
     # pencil factorization of the joint beta-covariance stack (see
     # io/tables.py:_pencil_precompute) — the lever that keeps the joint
-    # likelihood's covariance cost O(n_b * D^2) MXU flops + O(D) logdet
+    # likelihood's covariance cost O(n_b * D^2) matmul flops + O(D) logdet
     # instead of per-eval (D, D) gathers + an O(D^3) slogdet as the
     # stacked vector D = N*60 grows with the quantile count
     cov_logdet: Optional[jax.Array] = None     # (n_b,)

@@ -1,4 +1,4 @@
-"""Functional CCF theory engine: real-space -> redshift-space mapping on TPU.
+"""Functional CCF theory engine: real-space -> redshift-space mapping on device.
 
 This is the jit/vmap-able re-design of the reference hot path
 (victor/ccf_model.py:328-860). All tables/operators are precomputed
@@ -23,16 +23,16 @@ import jax.numpy as jnp
 from ..config import TableSpec, TheoryOptions
 from ..errors import InputError
 from ..ops.legendre import legendre_p
-# single implementation shared with ops.PchipTable (the compare_all
-# searchsorted and Horner form are CLAUDE.md-mandated on TPU — keeping one
-# copy means a future fix cannot miss the other call site); re-exported for
+# single implementation shared with ops.PchipTable (keeping one copy means
+# a future fix cannot miss the other call site); re-exported for
 # likelihood/core.py
 from ..ops.splines import pchip_eval  # noqa: F401
 
 SQRT2PI = 2.5066282746310002
 
-# full-precision matmul: the operators are small, so MXU time is negligible,
-# but TPU's default bf16 matmul precision would cost ~1e-2 on chi^2
+# full-precision matmul: the operators are small, so the pin costs nothing,
+# while XLA's default f32 matmul precision (TF32 on the GPU) would cost
+# ~1e-2 on chi^2
 from ..ops.splines import matmul_highest as _mm  # noqa: E402
 
 
@@ -49,6 +49,24 @@ def resolve_ap(params):
     return epsilon, aperp, apar
 
 
+
+
+def separation(s_perp, r_par):
+    """Real-space separation sqrt(s_perp^2 + r_par^2), floored at
+    sqrt(tiny) of the dtype (1.1e-19 in f32, 1.5e-154 in f64).
+
+    On the line of sight (s_perp = 0) r_par can cancel exactly to zero, and
+    the dispersion model's Picard updates shrink it geometrically towards
+    zero at small separations, where f32 underflows (the GPU flushes
+    subnormals to zero). A zero separation turns r_par / rr and v_r / rr
+    into NaN or inf, and the likelihood's guard then rejects the whole
+    parameter point. The floor keeps those ratios finite; it is far below
+    any separation the model resolves, so float64 results are unchanged.
+    The floor is applied to the squared separation, so the gradient stays
+    finite there too.
+    """
+    r2 = s_perp ** 2 + r_par ** 2
+    return jnp.sqrt(jnp.maximum(r2, jnp.finfo(r2.dtype).tiny))
 
 
 def real_multipoles(tables, spec: TableSpec, beta):
@@ -188,17 +206,16 @@ def theory_xi_points(tables, spec: TableSpec, opts: TheoryOptions, params,
         return tables.spline_vel.eval(c_dvr, q / resc_vel) / resc_vel
 
     def vr_dvr_at(q):
-        """(v_r, dv_r/dr) at the same points. NOTE: a fused two-channel
-        masksum (stacked coefficients, shared interval masks) was measured
-        SLOWER here — the extra channel axis broke XLA's broadcast+reduce
-        fusion and the (n-1, 2, n_v, q) intermediate spilled to HBM
-        (dispersion 10.1k -> 7.2k evals/s) — so the two splines evaluate
-        separately and XLA fuses each pass independently."""
+        """(v_r, dv_r/dr) at the same points. The two splines evaluate
+        separately so XLA fuses each pass independently: a fused
+        two-channel masksum (stacked coefficients, shared interval masks)
+        adds a channel axis that can break the broadcast+reduce fusion and
+        materialise the (n-1, 2, n_v, q) intermediate in device memory."""
         return vr_at(q), dvr_at(q)
 
     # --- AP-corrected coordinates (ccf_model.py:641-644) ---
-    # TPU layout: the (mu, s) points form one flat trailing axis q (so the
-    # minor dimension is large and tile padding is negligible); the
+    # layout: the (mu, s) points form one flat trailing axis q (so the
+    # minor dimension is large and padding is negligible); the
     # velocity-node axis, when present, leads: (n_v, q).
     needs_v = opts.rsd_model in ('streaming', 'dispersion')
     X = tables.x_nodes[:, None] if needs_v else None               # (n_v, 1)
@@ -236,15 +253,15 @@ def theory_xi_points(tables, spec: TableSpec, opts: TheoryOptions, params,
 
         if opts.rsd_model == 'streaming':
             r_par = s_par - v_par * iaH_true
-            rr = jnp.sqrt(s_perp ** 2 + r_par ** 2)
+            rr = separation(s_perp, r_par)
             mu_r = r_par / rr
             if opts.streaming_eval == 'fast' and tables.sv_surf.y_const:
-                # Opt-in throughput mode (streaming_eval='fast'): the two
-                # 150k-point spline masksums whose queries are smooth in rr
-                # — v_r and the mu-independent sigma_v template — evaluate
-                # on degree-48 Chebyshev compressions (~1.5x fewer VPU ops
-                # each than the 30-interval masksum, and the two Clenshaw
-                # recurrences share rr). Same technique/degree as the
+                # Throughput mode (streaming_eval='fast'): the two
+                # 150k-point spline evaluations whose queries are smooth in
+                # rr — v_r and the mu-independent sigma_v template —
+                # evaluate on degree-48 Chebyshev compressions (~1.5x fewer
+                # ops each than the 30-interval masksum, and the two
+                # Clenshaw recurrences share rr). Same technique/degree as the
                 # validated dispersion fast mode; bounds in
                 # test_golden.py::test_streaming_fast_bound, posterior
                 # validation in BASELINE.md round 3. mu-dependent sigma_v
@@ -286,7 +303,7 @@ def theory_xi_points(tables, spec: TableSpec, opts: TheoryOptions, params,
             # ~0.08/step on BOSS-like profiles, so the INTERIOR iterations only
             # need the velocity spline to ~1e-3: they use a degree-24 Chebyshev
             # compression (fit error 7e-4 relative on the BOSS velocity
-            # profile; ~3x fewer VPU ops than the 30-interval masksum), while
+            # profile; ~3x fewer ops than the 30-interval masksum), while
             # the FINAL iteration and all downstream quantities evaluate the
             # exact spline. The contraction bounds the end effect below both
             # f32 noise and the reference's own 5-iteration convergence error
@@ -301,7 +318,7 @@ def theory_xi_points(tables, spec: TableSpec, opts: TheoryOptions, params,
             if opts.niter == 0 or opts.dispersion_interior == 'exact':
                 r_par = A / (1.0 + iaH_true * vr_at(s_true) / s_true)
                 for _ in range(max(opts.niter - 1, 0)):
-                    rr = jnp.sqrt(s_perp ** 2 + r_par ** 2)
+                    rr = separation(s_perp, r_par)
                     r_par = A / (1.0 + iaH_true * vr_at(rr) / rr)
                 n_final = min(opts.niter, 1)   # niter=0: initial guess only
             else:
@@ -312,49 +329,45 @@ def theory_xi_points(tables, spec: TableSpec, opts: TheoryOptions, params,
 
                 r_par = A / (1.0 + iaH_true * vr_fast(s_true) / s_true)
                 for _ in range(opts.niter - 1):
-                    rr = jnp.sqrt(s_perp ** 2 + r_par ** 2)
+                    rr = separation(s_perp, r_par)
                     r_par = A / (1.0 + iaH_true * vr_fast(rr) / rr)
                 n_final = 1
 
             # final stage: the exact Picard update + the jacobian's
-            # v_r/dv_r — the three exact spline passes that set the
-            # dispersion model's throughput floor (BASELINE.md anatomy)
-            if n_final and opts.dispersion_final == 'fused':
-                # whole final stage in one VMEM-resident Pallas kernel
-                # (forward-only throughput experiment; same algorithm)
-                from ..ops.dispersion_pallas import dispersion_final_fused
-                r_par, rr, mu_r, jacobian = dispersion_final_fused(
-                    tables.spline_vel.x, c_vr, c_dvr, r_par, A, s_perp,
-                    iaH_true, resc_vel)
+            # v_r/dv_r — the three exact spline passes of the dispersion
+            # model (PERF.md times this stage on the GPU)
+            if n_final:
+                rr_prev = separation(s_perp, r_par)
+                vr_prev = vr_at(rr_prev)               # exact final pass
+                r_par = A / (1.0 + iaH_true * vr_prev / rr_prev)
+            rr = separation(s_perp, r_par)
+            mu_r = r_par / rr
+            if n_final and opts.dispersion_final == 'fast':
+                # At the converged fixed point |rr - rr_prev| is of the
+                # order of the convergence error itself (~1e-5 relative),
+                # so the final update's exact v_r(rr_prev) stands in for
+                # v_r(rr) at error ~ dv_r*(rr-rr_prev) — SMALLER than the
+                # interior Chebyshev error — and dv_r uses a degree-48
+                # Chebyshev compression (the jacobian tolerates more dv_r
+                # error than r_par tolerates v_r error, but degree 24
+                # measured 3.7e-4 on xi vs 9e-6 at 48; Clenshaw-48 is still
+                # ~1.5x fewer ops than the 30-interval masksum). Net effect
+                # measured at <=9e-6 on xi — below the interior
+                # compression's own 2e-5 bound
+                # (test_dispersion_fast_final_bound).
+                vr_rr = vr_prev
+                coef_d = chebyshev_fit(dvr_at, lo, hi, degree=48)
+                dvr_rr = chebyshev_eval(coef_d, lo, hi, rr)
             else:
-                if n_final:
-                    rr_prev = jnp.sqrt(s_perp ** 2 + r_par ** 2)
-                    vr_prev = vr_at(rr_prev)               # exact final pass
-                    r_par = A / (1.0 + iaH_true * vr_prev / rr_prev)
-                rr = jnp.sqrt(s_perp ** 2 + r_par ** 2)
-                mu_r = r_par / rr
-                if n_final and opts.dispersion_final == 'fast':
-                    # At the converged fixed point |rr - rr_prev| is of the
-                    # order of the convergence error itself (~1e-5 relative),
-                    # so the final update's exact v_r(rr_prev) stands in for
-                    # v_r(rr) at error ~ dv_r*(rr-rr_prev) — SMALLER than the
-                    # interior Chebyshev error — and dv_r uses a degree-48
-                    # Chebyshev compression (the jacobian tolerates more
-                    # dv_r error than r_par tolerates v_r error, but degree
-                    # 24 measured 3.7e-4 on xi vs 9e-6 at 48; Clenshaw-48 is
-                    # still ~1.5x fewer VPU ops than the 30-interval
-                    # masksum). Net effect measured at <=9e-6 on xi — below
-                    # the interior compression's own 2e-5 bound
-                    # (test_dispersion_fast_final_bound); opt-in via
-                    # dispersion_final='fast'.
-                    vr_rr = vr_prev
-                    coef_d = chebyshev_fit(dvr_at, lo, hi, degree=48)
-                    dvr_rr = chebyshev_eval(coef_d, lo, hi, rr)
-                else:
-                    vr_rr = vr_at(rr)
-                    dvr_rr = dvr_at(rr)
-                jacobian = 1.0 / (1.0 + vr_rr * iaH_true / rr
-                                  + iaH_true * mu_r ** 2 * (dvr_rr - vr_rr / rr))
+                vr_rr = vr_at(rr)
+                dvr_rr = dvr_at(rr)
+            # 1 + iaH (mu^2 dv_r/dr + (1 - mu^2) v_r/r): written with
+            # 1 - mu^2 = (s_perp/rr)^2 rather than as v_r/r - mu^2 v_r/r,
+            # whose two large terms cancel on the line of sight at small
+            # separations (f32 keeps nothing of them below rr ~ 1e-7)
+            sin2 = (s_perp / rr) ** 2
+            jacobian = 1.0 / (1.0 + iaH_true * ((1.0 - sin2) * dvr_rr
+                                                + sin2 * vr_rr / rr))
             sv = sigma_v * tables.sv_surf.ev(rr / resc, mu_r)
             vel_pdf = jnp.exp(-0.5 * (v_par / sv) ** 2) / (SQRT2PI * sv)
 
@@ -377,13 +390,13 @@ def theory_xi_points(tables, spec: TableSpec, opts: TheoryOptions, params,
     if opts.kaiser_coord_shift:
         r_par = s_par / (1.0 + M * iaH_true * vr_at(s_true) / s_true)
         for _ in range(opts.niter):
-            rr = jnp.sqrt(s_perp ** 2 + r_par ** 2)
+            rr = separation(s_perp, r_par)
             r_par = s_par / (1.0 + M * iaH_true * vr_at(rr) / rr)
     else:
         # deliberately incorrect variant kept for reproducing published results
         # (ccf_model.py:704-707)
         r_par = s_par
-    rr = jnp.sqrt(s_perp ** 2 + r_par ** 2)
+    rr = separation(s_perp, r_par)
     mu_r = r_par / rr
 
     if opts.rsd_model == 'kaiser':

@@ -42,9 +42,9 @@ from .eisenstein_hu import (eisenstein_hu_params, power_eh, sigma80,
 
 TWO_PI2 = 2.0 * jnp.pi ** 2
 
-# all k-integral contractions pin full precision: TPU's default bf16 matmul
-# passes would silently degrade the s_j variances (and the finite-difference
-# _s0_derivative_term built from their differences) on f32 — CLAUDE.md rule 6
+# all k-integral contractions pin full precision: XLA's default f32 matmul
+# precision (TF32 on the GPU) would silently degrade the s_j variances (and
+# the finite-difference _s0_derivative_term built from their differences)
 from ..ops.splines import matmul_highest as _mm_hi  # noqa: E402
 
 

@@ -1,4 +1,4 @@
-"""Fixed-shape spline primitives for TPU execution.
+"""Fixed-shape spline primitives for accelerator execution.
 
 Design: every interpolation in the reference pipeline (victor/ccf_model.py) uses
 scipy splines with *fixed knot vectors* whose evaluation is *linear in the table
@@ -33,10 +33,11 @@ import jax
 import jax.numpy as jnp
 
 
-#: matmul with the MXU precision pin — THE shared definition (imported by the
-#: theory/ESM/sampler hot paths). TPU's default bf16 matmul silently costs
-#: ~1.3 on chi2; keeping one copy means a future change to how the pin is
-#: expressed cannot miss a site and reintroduce the degradation.
+#: matmul with the full-precision pin — THE shared definition (imported by
+#: the theory/ESM/sampler hot paths). Without it XLA may run f32 matmuls in
+#: a reduced-precision mode (TF32 on the GPU), which costs ~1 on chi2;
+#: keeping one copy means a future change to how the pin is expressed
+#: cannot miss a site and reintroduce the degradation.
 matmul_highest = functools.partial(jnp.matmul, precision='highest')
 
 
@@ -202,6 +203,14 @@ class Spline1D:
         return self.eval(self.coeffs(y), q)
 
 
+def default_strategy(backend: str) -> str:
+    """`ppoly_eval`'s evaluation strategy for a JAX backend name: the
+    measured end-to-end winner (PERF.md). On an H100 'masksum' beats
+    'gather' on the streaming, dispersion and excursion-set likelihoods;
+    on the CPU 'gather' wins."""
+    return 'masksum' if backend == 'gpu' else 'gather'
+
+
 def ppoly_eval(x: jax.Array, coeffs: jax.Array, q: jax.Array,
                clamp: bool = True, strategy: str | None = None) -> jax.Array:
     """Evaluate a piecewise cubic at query points q.
@@ -211,22 +220,22 @@ def ppoly_eval(x: jax.Array, coeffs: jax.Array, q: jax.Array,
     q:      arbitrary shape
     clamp:  if True, clamp q into [x[0], x[-1]] (scipy ext=3 semantics);
             otherwise the end polynomials extend (ext=0 / PPoly extrapolate).
-    strategy: 'gather' (searchsorted + coefficient gather; best on CPU) or
-            'masksum' (interval-mask accumulation with zero gathers; best on
-            TPU where arbitrary gathers serialise). None picks by backend.
-            Both are bit-identical selections of the same local polynomial.
+    strategy: 'gather' (searchsorted + coefficient gather) or 'masksum'
+            (interval-mask accumulation with zero gathers). None picks by
+            backend (`default_strategy`). Both are bit-identical selections
+            of the same local polynomial.
     """
     n = x.shape[0]
     qq = jnp.clip(q, x[0], x[-1]) if clamp else q
     if strategy is None:
-        strategy = 'masksum' if jax.default_backend() == 'tpu' else 'gather'
+        strategy = default_strategy(jax.default_backend())
 
     if strategy == 'gather':
         idx = jnp.clip(jnp.searchsorted(x, qq, side='right',
                                         method='compare_all') - 1, 0, n - 2)
         t = qq - x[idx]
         # gather each coefficient plane separately: a fused (..., *q.shape, 4)
-        # gather would be tile-padded 4 -> 128 on TPU (32x HBM blow-up)
+        # gather pads its minor axis of 4 in the device layout
         c0 = coeffs[..., idx, 0]
         c1 = coeffs[..., idx, 1]
         c2 = coeffs[..., idx, 2]
@@ -246,7 +255,7 @@ def ppoly_eval(x: jax.Array, coeffs: jax.Array, q: jax.Array,
     # (v_r, dv_r) pair or the real-space multipole stack) evaluate in ONE
     # pass: the query offsets `t` and the interval masks are computed once
     # and broadcast over the channel axes, so K fused channels cost roughly
-    # (4 + 5K)/(9K) of K separate passes on the VPU. Per channel the op
+    # (4 + 5K)/(9K) of K separate passes. Per channel the op
     # sequence (and therefore the float result) is identical to a
     # single-channel call.
     lead = coeffs.ndim - 2            # number of leading channel axes
@@ -268,10 +277,10 @@ def ppoly_eval(x: jax.Array, coeffs: jax.Array, q: jax.Array,
     # `+ (qq - qq)` propagates NaN queries: a NaN fails every interval mask,
     # so the select alone would return a finite-but-bogus 0 where the gather
     # strategy (and scipy) propagate NaN — silently hiding invalid parameter
-    # points from the likelihood's NaN guard on TPU. The post-sum term is 0
-    # for finite queries (bit-identical result) and NaN for NaN queries, and
-    # costs two VPU ops per POINT — a NaN-aware mask would cost per
-    # interval-lane on this VPU-bound hot path.
+    # points from the likelihood's NaN guard. The post-sum term is 0 for
+    # finite queries (bit-identical result) and NaN for NaN queries, and
+    # costs two ops per POINT — a NaN-aware mask would cost per interval on
+    # this elementwise-bound hot path.
     return jnp.sum(jnp.where(m, p, 0.0), axis=0) + (qq - qq)
 
 
@@ -317,8 +326,8 @@ class Bicubic2D:
     tensor-product interpolant, linear in z, so with z = sum_m u_m v_m^T (SVD)
     the surface is exactly sum_m S_x[u_m](q) * S_y[v_m](p) where S_x/S_y are
     the 1D FITPACK cubic interpolants (== not-a-knot). Evaluation is then a
-    handful of 1D piecewise-cubic evals — no 2D cell gathers, which on TPU
-    would either serialise (gather) or tile-pad (4x4 blocks) catastrophically.
+    handful of 1D piecewise-cubic evals — no 2D cell gathers of (4, 4)
+    coefficient blocks.
     Rank is truncated at machine precision; separable surfaces (e.g. the BOSS
     isotropic dispersion template, constant in mu) collapse to rank 1.
     """
@@ -381,7 +390,7 @@ def cubic_coeffs_dynamic(x, y):
 
     Unlike `Spline1D` (fixed knots, host-probed operator), this solves the
     not-a-knot first-derivative system on device (dense solve; the ESM grids
-    are ~50-100 knots so this is microseconds on the MXU). Matches
+    are ~50-100 knots, so the solve is tiny). Matches
     scipy.interpolate.CubicSpline(x, y, bc_type='not-a-knot') == IUS(k=3),
     which the reference builds on the parameter-dependent Eulerian radius
     grid every call (victor/excursion_set_profile.py:371,486).
@@ -509,14 +518,11 @@ def chebyshev_eval_trig(coef: jax.Array, a, b, q: jax.Array) -> jax.Array:
     parallel broadcast-reduce, versus Clenshaw's 2(K-1)-step sequential
     recurrence.
 
-    MEASURED AND REJECTED as a fix for streaming fast mode's HMC regression
-    (v5e, BOSS config, degree 48): forward 2,450 evals/s vs Clenshaw's
-    24,724 (10x slower — even 7.4x below the exact masksum), HMC warm 154 s
-    vs 33 s. The Clenshaw recurrence's sequential steps are each one cheap
-    lane-parallel FMA over the 150k-point vector; the trig form replaces
-    them with ~K transcendentals per point, and VPU transcendental cost
-    dominates everything else. Kept (like ppoly_eval_pallas) as the measured
-    reference point for that conclusion, with exact-parity tests.
+    Rejected as a fix for streaming fast mode's AD cost: the Clenshaw
+    recurrence's sequential steps are each one cheap FMA over the
+    150k-point vector, while the trig form replaces them with ~K
+    transcendentals per point. Kept as the reference point for that
+    conclusion, with exact-parity tests.
 
     u is clipped just INSIDE [-1, 1]: beyond the fit domain the series is
     constant-extrapolated to fit accuracy anyway, and the margin keeps
@@ -528,67 +534,3 @@ def chebyshev_eval_trig(coef: jax.Array, a, b, q: jax.Array) -> jax.Array:
     k = jnp.arange(coef.shape[0], dtype=coef.dtype)
     basis = jnp.cos(theta[..., None] * k)
     return jnp.einsum('...k,k->...', basis, coef, precision='highest')
-
-
-# ---------------------------------------------------------------------------
-# Pallas TPU kernel variant of the interval-mask evaluation
-# ---------------------------------------------------------------------------
-
-def ppoly_eval_pallas(x, coeffs, q, clamp: bool = True, tile: int = 32,
-                      interpret: bool | None = None):
-    """`ppoly_eval` masksum as a hand-written Pallas TPU kernel.
-
-    Bit-identical to the XLA masksum path (measured max diff 0.0 on the
-    production shapes). Benchmarked on a v5e chip at (6400, 3072) points with
-    55 intervals: XLA fused masksum 8.2 ms vs this kernel 9.4 ms — XLA's
-    fusion already runs the algorithm at the VPU roofline, so the kernel is
-    NOT the default; it is kept as the measured reference point for that
-    conclusion (and it cold-compiles 35x faster: 4.7 s vs 163 s).
-
-    `q` must be 2D with the minor dimension a multiple of 128 and rows a
-    multiple of `tile`. `interpret=True` runs the kernel in interpreter mode
-    (for CPU testing); default interprets automatically off-TPU.
-    """
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if interpret is None:
-        interpret = jax.default_backend() != 'tpu'
-    n = x.shape[0]
-    if q.ndim != 2 or q.shape[0] % tile or q.shape[1] % 128:
-        raise ValueError('ppoly_eval_pallas needs q of shape '
-                         '(k*tile, m*128); use ppoly_eval for general shapes')
-
-    def kernel(x_ref, c_ref, q_ref, o_ref):
-        qq = jnp.clip(q_ref[:], x_ref[0, 0], x_ref[0, n - 1]) if clamp \
-            else q_ref[:]
-        acc = jnp.zeros_like(qq)
-        for i in range(n - 1):
-            t = qq - x_ref[0, i]
-            p = ((c_ref[i, 3] * t + c_ref[i, 2]) * t + c_ref[i, 1]) * t \
-                + c_ref[i, 0]
-            if i == 0:
-                m = qq < x_ref[0, 1]
-            elif i == n - 2:
-                m = qq >= x_ref[0, i]
-            else:
-                m = (qq >= x_ref[0, i]) & (qq < x_ref[0, i + 1])
-            acc = acc + jnp.where(m, p, 0.0)
-        # `+ (qq - qq)` propagates NaN queries — see ppoly_eval
-        o_ref[:] = acc + (qq - qq)
-
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
-        grid=(q.shape[0] // tile,),
-        in_specs=[
-            pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((n - 1, 4), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, q.shape[1]), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, q.shape[1]), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(x[None, :], coeffs, q)

@@ -1,12 +1,12 @@
-"""Device-mesh utilities: the TPU-native replacement for the reference's MPI.
+"""Device-mesh utilities: the on-device replacement for the reference's MPI.
 
 The reference's only multiprocess facility is `mpirun -n N cobaya-run` —
 N independent chains that communicate solely for the Gelman-Rubin check
-(victor/README.md:30). On TPU the equivalent is a `jax.sharding.Mesh` with a
-('chains', 'walkers') layout: chains x walkers are data-parallel across chips
-over ICI, tables are replicated, and cross-chain statistics (R-hat, ESS) are
-computed with ordinary jnp reductions under pjit — XLA inserts the
-collectives; there is no explicit message passing anywhere.
+(victor/README.md:30). Here the equivalent is a `jax.sharding.Mesh` with a
+('chains', 'walkers') layout: chains x walkers are data-parallel across
+devices, tables are replicated, and cross-chain statistics (R-hat, ESS) are
+computed with ordinary jnp reductions under jit — XLA inserts the
+collectives (NCCL on GPUs); there is no explicit message passing anywhere.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def distributed_init(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Initialise multi-host JAX (pod slices / DCN). No-op single-host.
+    """Initialise multi-host JAX. No-op single-host.
 
     Call once at program start on each host before any device use; after it,
     `jax.devices()` spans the full slice and the same single-controller pjit
@@ -48,9 +48,10 @@ def make_mesh(axis_names: Sequence[str] = ('chains', 'walkers'),
               devices: Optional[Sequence] = None) -> Mesh:
     """Build a Mesh over available devices.
 
-    Default layout puts `chains` on the slower/outer axis and `walkers`
-    within: both are embarrassingly parallel for likelihood evaluation, so the
-    split only matters for how cross-chain reductions ride the ICI torus.
+    Default layout puts `chains` on the outer axis and `walkers` within:
+    both are embarrassingly parallel for likelihood evaluation. The GPUs of
+    one host are joined all to all by NVLink, so every device pair is
+    equally close and the devices fill the mesh in enumeration order.
     If `shape` is omitted, devices are factored as evenly as possible.
     """
     devices = list(devices if devices is not None else jax.devices())
@@ -69,21 +70,7 @@ def make_mesh(axis_names: Sequence[str] = ('chains', 'walkers'),
             if len(axis_names) > 1 else (n,)
     if int(np.prod(shape)) != n:
         raise ValueError(f'mesh shape {shape} does not cover {n} devices')
-    if devices == list(jax.devices()):
-        # topology-aware assignment: mesh-axis neighbors should be physical
-        # ICI neighbors on real multi-chip slices (a naive enumeration-order
-        # reshape makes the cross-chain all-reduces hop across the fabric);
-        # on CPU/single-chip this reduces to the plain reshape
-        from jax.experimental import mesh_utils
-        try:
-            dev_array = mesh_utils.create_device_mesh(tuple(shape),
-                                                      devices=devices)
-        except Exception:
-            dev_array = np.asarray(devices).reshape(shape)
-    else:
-        # an explicit device subset keeps the caller's ordering
-        dev_array = np.asarray(devices).reshape(shape)
-    return Mesh(dev_array, tuple(axis_names))
+    return Mesh(np.asarray(devices).reshape(shape), tuple(axis_names))
 
 
 def shard_along(x, mesh: Mesh, axes: Sequence[Optional[str]]):
@@ -99,8 +86,8 @@ def replicate(x, mesh: Mesh):
 def cross_chain_rhat(chains_by_param):
     """Split-R-hat over a (n_chains, n_draws, n_params) array.
 
-    Under pjit with the chains axis sharded, the means/variances lower to
-    XLA all-reduces over ICI — the mesh-native Gelman-Rubin check.
+    Under jit with the chains axis sharded, the means/variances lower to
+    XLA all-reduces — the mesh-native Gelman-Rubin check.
     """
     import jax.numpy as jnp
     x = chains_by_param

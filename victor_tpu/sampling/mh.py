@@ -2,7 +2,7 @@
 
 The reference samples with cobaya's Metropolis-Hastings over MPI processes
 (victor/README.md:30; config/boss_cobaya_config.yaml:44-48 — proposal widths
-per parameter, covariance learned during burn-in). This is the TPU-native
+per parameter, covariance learned during burn-in). This is the on-device
 equivalent: vmapped independent chains whose Gaussian proposal uses the
 SAME staged adaptation machinery as HMC (sampling/hmc.py) — Welford
 accumulation of the dense chain covariance (identity -> diagonal -> dense,

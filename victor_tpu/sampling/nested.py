@@ -9,7 +9,7 @@ two share no statistics, so agreement is a genuine validation of both
 (tools/validate_posterior.py provides the third, sampler-free anchor).
 
 Algorithm (batched Skilling nested sampling, MCMC constrained replacement —
-the MultiNest-style kernel, vectorised for the TPU's batch appetite):
+the MultiNest-style kernel, vectorised for the accelerator's batch appetite):
 
   1. N live points drawn from the PRIOR, held in the unbounded
      reparameterisation y (ParamSpace.to_unbounded).

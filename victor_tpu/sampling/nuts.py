@@ -10,7 +10,7 @@ and draws the next state multinomially from the whole trajectory
 1701.02434). It is the robust choice for harder/curved posteriors (e.g.
 high-dimensional joint density-split fits).
 
-TPU design: the recursive tree build is rewritten ITERATIVELY (the
+Device design: the recursive tree build is rewritten ITERATIVELY (the
 recursion is data-dependent and unbounded, which XLA cannot trace):
 
   * the outer doubling loop is a `lax.while_loop` over tree depth;

@@ -4,7 +4,7 @@ The reference ecosystem gets point estimates from external minimizers
 (cobaya's `minimize` sampler wrapping scipy/py-bobyqa over the same
 likelihood; victor itself ships none). Here the posterior is differentiable
 end-to-end on device (gradients cost ~1.2x a forward pass — BASELINE.md), so
-the TPU-native equivalent is direct: vmapped multi-start Adam in the
+the on-device equivalent is direct: vmapped multi-start Adam in the
 unbounded reparameterisation, a damped-Newton polish with the exact
 `jax.hessian`, and a Laplace covariance from the Hessian at the optimum.
 
@@ -727,7 +727,7 @@ def profile_scan(bundle, params_block: Dict, scan_names,
 
     # chunk the grid axis: the vmapped hessian/jvp intermediates are
     # (chunk, n_free, n_v, q)-sized, so a large 2D grid in one dispatch
-    # exhausts HBM (observed at 225 points on a v5e); fixed chunk shape
+    # exhausts device memory (observed at 225 points); fixed chunk shape
     # keeps it one compile + a handful of dispatches
     G = len(grid)
     chunk = min(grid_chunk, G)

@@ -13,8 +13,8 @@ values, priors, fast/exact evaluation mode, ...), and reweight
                       - (lnL_old + lnPrior_old)(theta_i) ].
 
 Because both targets evaluate in one chunked vmapped dispatch at the full
-batched-likelihood throughput (~18k evals/s on a v5e chip), reweighting a
-4096-particle posterior costs well under a second — option-sensitivity
+batched-likelihood throughput, reweighting a 4096-particle posterior costs
+one batched likelihood pass — option-sensitivity
 studies that would otherwise each need a fresh sampler run become
 interactive.
 

@@ -267,7 +267,7 @@ class ParamSpace:
                     u = (jnp.log(x) - math.log(p.lo)) / math.log(p.hi / p.lo)
                 else:
                     u = (x - p.lo) / (p.hi - p.lo)
-                # dtype-safe bounds: 1 - 1e-12 rounds to 1.0 in f32 (the TPU
+                # dtype-safe bounds: 1 - 1e-12 rounds to 1.0 in f32 (the device
                 # path), making the upper clip a no-op — a draw at (or
                 # rounding to) the support edge would map to logit(1) = +inf
                 # and poison the SMC/NS particle moments (same f32-rounding
@@ -277,7 +277,7 @@ class ParamSpace:
                 u = jnp.clip(u, eps, 1 - eps)
                 cols.append(jnp.log(u) - jnp.log1p(-u))
             elif p.dist == 'halfnorm':
-                # dtype-safe floor: 1e-300 underflows to 0.0 in f32 (the TPU
+                # dtype-safe floor: 1e-300 underflows to 0.0 in f32 (the device
                 # path), turning the guard into log(0) = -inf at x == p.lo
                 tiny = jnp.finfo(jnp.asarray(x).dtype).tiny
                 cols.append(jnp.log(jnp.maximum(x - p.lo, tiny)))

@@ -2,7 +2,7 @@
 
 Neither the reference nor cobaya's default Metropolis provides the evidence
 Z = integral of L(theta) pi(theta) d theta (cobaya users reach for external
-nested samplers). On TPU an SMC sampler is the natural fit: the whole
+nested samplers). On an accelerator an SMC sampler is the natural fit: the whole
 particle population evaluates in one vmapped dispatch per stage, the
 temperature ladder adapts itself, and log Z falls out of the incremental
 importance weights for free.

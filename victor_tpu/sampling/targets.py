@@ -31,7 +31,7 @@ class JitFnCache(collections.OrderedDict):
 
     The sampler/optimizer layers cache compiled segment/init functions per
     (target, params-block, knob) key so repeat calls skip re-lowering the
-    big likelihood graphs (minutes on TPU). An unbounded dict pins every
+    big likelihood graphs (tens of seconds each). An unbounded dict pins every
     compiled executable AND everything its key's closures capture — for
     callable targets that includes the user closure and any device tables
     it holds — for the process lifetime (the HBM-leak class api.py's _memo
